@@ -6,7 +6,7 @@ Run:  python examples/01_tls_state_transfer.py
 
 import jax
 
-jax.config.update("jax_platforms", "cpu")  # small problem; see docs for TPU
+jax.config.update("jax_platforms", "cpu")  # small problem: CPU is enough
 jax.config.update("jax_enable_x64", True)
 
 import numpy as np

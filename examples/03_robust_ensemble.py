@@ -19,7 +19,7 @@ from grape_tpu.models import transmon_ensemble_trajectories
 
 
 def main():
-    K = 16  # ensemble size (scale to thousands on a TPU slice)
+    K = 16  # ensemble size (scale to thousands on a GPU)
     trajectories = transmon_ensemble_trajectories(
         K, d=3, delta_spread=0.05, T=20.0
     )
@@ -51,12 +51,12 @@ def main():
 def main_robust_gate():
     """Robust GATE ensemble (BASELINE config-5 north star): a CZ on an
     ensemble of perturbed two-transmon Hamiltonians.  Each sample's 4
-    logical basis trajectories share one generator, which the fused
-    kernels exploit automatically (grouped expm bases); the functional
+    logical basis trajectories share one generator, which the ExpProp
+    paths exploit automatically (grouped expm bases); the functional
     is per-sample coherent / cross-sample incoherent
     (`make_ensemble_gate_functional` — a plain J_T_sm would let the
-    sample-dependent drift phases interfere destructively).  On TPU,
-    add `optimizer="device-lbfgs"` for the device-resident loop."""
+    sample-dependent drift phases interfere destructively).  Add
+    `optimizer="device-lbfgs"` for the device-resident loop."""
     from grape_tpu import optimize_problem
     from grape_tpu.models import two_transmon_cz_ensemble_problem
 

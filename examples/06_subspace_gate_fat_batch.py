@@ -3,13 +3,10 @@ subspace of a two-transmon register, optimized over K = 8 basis-state
 trajectories under ONE shared generator.
 
 This is the reference's gate-functional pattern
-(`/root/reference/docs/src/background.md:552-610`) in the regime that
-packs the TPU MXU: with a shared generator every propagator term
-application is a single (K, dim) @ (dim, dim) matmul instead of K thin
-ones, and the fused Fréchet-trace kernel serves the gradgen backward
-for any K (directions ride the kernel grid in blocks of 8).  Measured
-on-chip at dim=100 K=64: 18.4% device-time MFU, 228k traj-steps/s —
-3.5× the thin K=4 logical-basis CZ (BENCH.md).
+(reference `docs/src/background.md:552-610`) in the fat-batch
+regime: with a shared generator every propagator term application is a
+single (K, dim) @ (dim, dim) matmul instead of K thin ones, and the
+gradgen backward derives one expm base per step for all K directions.
 
 Run:  python examples/06_subspace_gate_fat_batch.py   (~1 min on CPU)
 """
@@ -25,7 +22,7 @@ from grape_tpu.models import two_transmon_subspace_gate_problem
 
 
 def main():
-    # CPU-sized instance of the fat-batch family (on TPU: d=10..32,
+    # CPU-sized instance of the fat-batch family (on the GPU: d=10..32,
     # n_basis=64, complex64 — same code path).  A random subspace
     # unitary is only partially reachable with two drive controls; the
     # example demonstrates steady infidelity descent, like the model's

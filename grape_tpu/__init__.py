@@ -1,6 +1,6 @@
-"""grape_tpu — a TPU-native GRAPE quantum-optimal-control framework.
+"""grape_tpu — a JAX GRAPE quantum-optimal-control framework.
 
-Brand-new JAX/XLA/Pallas implementation with the capabilities of GRAPE.jl
+A JAX/XLA implementation with the capabilities of GRAPE.jl
 (JuliaQuantumControl; reference at /root/reference, structural analysis in
 SURVEY.md): piecewise-constant pulse optimization over Schrödinger/Liouville
 dynamics for arbitrary final-time functionals plus pulse- and state-dependent

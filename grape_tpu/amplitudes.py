@@ -71,7 +71,7 @@ class CustomAmplitude:
     ``evaluate(μ; vals_dict)`` at ``src/optimize.jl:946-957``), so
     amplitudes may depend nonlinearly on the control — e.g. ``a = ε²`` or
     trig-bounded parametrizations ``a = A·sin(ε)``.  This class is the
-    TPU-native counterpart: the coefficient and its control derivative
+    JAX counterpart: the coefficient and its control derivative
     become traced per-interval functions of the pulse values, evaluated
     inside the jitted program (gradients pick up the chain-rule factor
     ``∂a/∂ε`` exactly).

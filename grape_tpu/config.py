@@ -1,13 +1,13 @@
 """Global numeric configuration for grape_tpu.
 
 The reference implementation (GRAPE.jl) runs everything in Float64/ComplexF64 on
-CPU.  On TPU, native arithmetic is float32/complex64; float64 is available via
-XLA emulation (``jax.config.update("jax_enable_x64", True)``) at a significant
-cost.  We therefore make the working precision explicit and configurable:
+CPU.  On an accelerator the fast arithmetic is float32/complex64; float64
+(``jax.config.update("jax_enable_x64", True)``) runs at a fraction of that
+rate.  We therefore make the working precision explicit and configurable:
 
 - tests run on CPU with x64 enabled (complex128) to reproduce the reference's
   1e-10..1e-14 tolerance anchors,
-- TPU benchmarks default to complex64 unless the caller asks for x64.
+- accelerator runs default to complex64 unless the caller asks for x64.
 """
 
 import jax

@@ -1,6 +1,6 @@
 """Control discretization.
 
-TPU-native analog of ``QuantumPropagators.Controls`` as consumed by the
+JAX analog of ``QuantumPropagators.Controls`` as consumed by the
 reference driver (``/root/reference/src/workspace.jl:154-162``,
 ``/root/reference/src/result.jl:76``, ``/root/reference/src/optimize.jl:226``):
 

@@ -3,7 +3,7 @@
 The reference initializes propagators PER TRAJECTORY from trajectory
 attributes (``/root/reference/src/workspace.jl:216-233,246-282``, spec
 ``src/docstring.jl:201-225``), so Cheby-for-one / ExpProp-for-another is
-legal there.  The TPU build batches trajectories through one jitted
+legal there.  This build batches trajectories through one jitted
 program, which requires uniform propagator settings per program — the
 round-4 answer was a documented ``NotImplementedError``
 (``fg._merge_traj_prop_settings``).  This module closes that last
@@ -20,7 +20,7 @@ the functional, co-states, and gradient assembled globally:
   block (functionals like ``J_T_sm`` sum coherently across trajectories
   and do NOT decompose over partitions);
 - the backward gradient pass runs per partition
-  (``fg._tau_grads_pass`` — including the vectorized/fused paths each
+  (``fg._tau_grads_pass`` — including the vectorized paths each
   partition qualifies for) on its slice of the normalized co-states,
   and the ``-2·Re Σ_k`` assembly sums across partitions
   (``src/optimize.jl:574-584``).
@@ -316,9 +316,7 @@ def build_fg_hetero(hp: HeteroCompiledProblem, amp_max=None):
     for cp_p, pd_p in zip(hp.parts, pds):
         recompute = cp_p.storage_mode == "recompute"
         vec_gg = _fg._vec_gradgen_enabled(cp_p, pd_p)
-        reuse_U = _fg._reuse_U_enabled(cp_p, pd_p) or (
-            vec_gg and _fg._gg_u_bytes_ok(cp_p)
-        )
+        reuse_U = _fg._reuse_U_enabled(cp_p, pd_p) or vec_gg
         want_U.append(reuse_U and not recompute)
     rdtype = hp.parts[0].tlist.dtype
     cdtype = hp.parts[0].psi0.dtype

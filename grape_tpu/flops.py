@@ -1,8 +1,7 @@
 """Analytic FLOP model for the fg evaluation (auditable MFU).
 
 XLA's ``cost_analysis()`` undercounts loop bodies (``lax.scan`` /
-``fori_loop`` trip counts are not always folded in), which produced
-``mfu: 0.0`` sweep rows in round 2 (VERDICT weak #4).  This module counts
+``fori_loop`` trip counts are not always folded in).  This module counts
 the algorithmic complex-arithmetic FLOPs of one function-and-gradient
 evaluation from the SAME host-side path-selection logic ``build_fg`` uses
 (shared-generator detection, vectorized-backward gating, static
@@ -14,10 +13,7 @@ Conventions
 - one complex multiply-add = 8 real FLOPs;
 - a ``d×d @ d×d`` complex matmul = ``8·d³``, a matvec = ``8·d²``;
 - the count is the ALGORITHMIC work (what the textbook formula costs),
-  independent of kernel implementation details (Karatsuba does 3/4 of the
-  naive real-matmul work for the same algorithmic count — MFU quoted
-  against this count is therefore slightly conservative for those
-  kernels);
+  independent of how XLA lowers the complex products;
 - O(d) and O(L·N_T) bookkeeping terms (coefficient tables, trapezoid
   weights, functionals) are omitted: they are ≤ 1e-3 of any entry here.
 
@@ -62,7 +58,7 @@ def fg_flops(cp, amp_max=None):
     reuse_U = _fg._reuse_U_enabled(cp, pd) or vec_gg
     n_ord = _fg._vectorized_taylor_orders(cp, amp_max)
     vec_bw = cp.vectorize_backward and n_ord is not None
-    s = _fg._pallas_squarings(cp, amp_max)
+    s = _fg._expm_squarings(cp, amp_max)
 
     d, K, L, N_T = cp.dim, cp.n_traj, cp.n_controls, cp.n_timesteps
     T = int(np.asarray(cp.M).shape[-2])
@@ -78,9 +74,8 @@ def fg_flops(cp, amp_max=None):
 
     # ---- forward propagation -------------------------------------------
     pd_fw = pd["fw"]
-    # generator grouping (gate ensembles): both the grouped Pallas
-    # forward kernel and the grouped XLA ExpProp step (round 5) derive
-    # one expm per (step, group) — executed-work accounting
+    # generator grouping (gate ensembles): the grouped ExpProp step
+    # derives one expm per (step, group) — executed-work accounting
     k_fw = k_u
     if (
         not cp.shared_generator
@@ -103,10 +98,6 @@ def fg_flops(cp, amp_max=None):
     if recompute:
         # segment re-propagation duplicates the forward work once
         total *= 2.0
-    seg_len = (
-        N_T // cp.storage_segments if recompute and cp.storage_segments
-        else N_T
-    )
 
     if vec_gg:
         # phase A: chi chain — one U†χ matvec/step with stored
@@ -128,37 +119,11 @@ def fg_flops(cp, amp_max=None):
             total += N_T * (k_a * (e_mm + s) * MM + K * MV)
         total += N_T * K * MV  # R = psi chi† outer products
         if cp.shared_generator:
-            if _fg._pallas_gradgen_enabled(cp, n_steps=seg_len) and K > 8:
-                # k-blocked kernel: the shared base (7 + s matmuls) is
-                # re-derived per 8-direction block riding the grid, and
-                # K pads to the block multiple (executed work, same
-                # convention as the recompute-mode doubling)
-                n_grp = -(-K // 8)
-                k_pad = 8 * n_grp
-                fre_mm = n_grp * (7 + s) + (13 + 2 * s) * k_pad
-            else:
-                fre_mm = (7 + 13 * K) + s * (1 + 2 * K)
+            fre_mm = (7 + 13 * K) + s * (1 + 2 * K)
             total += N_T * fre_mm * MM
         else:
-            gsz = (
-                cp.gen_group_size
-                if (
-                    _fg._pallas_gradgen_pertraj_enabled(
-                        cp, n_steps=seg_len
-                    )
-                    and _fg._effective_group_size(cp) > 1
-                )
-                else 1
-            )
-            if gsz > 1:
-                # grouped pertraj kernel: base (7 + s) once per (n,
-                # group), Fréchet chain (13 + 2s) per direction
-                total += N_T * (
-                    (K // gsz) * (7 + s) + K * (13 + 2 * s)
-                ) * MM
-            else:
-                fre_mm = 20 + 3 * s  # one direction, per (n, k)
-                total += N_T * K * fre_mm * MM
+            fre_mm = 20 + 3 * s  # one direction, per (n, k)
+            total += N_T * K * fre_mm * MM
             total += N_T * k_u * T * MV  # H_n reassembly
         total += N_T * K * T * MV  # tr(Op_j G) contractions
         return total

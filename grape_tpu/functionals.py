@@ -1,6 +1,6 @@
 """Optimization functionals and semi-automatic differentiation.
 
-TPU-native analog of ``QuantumControl.Functionals`` as consumed by the
+JAX analog of ``QuantumControl.Functionals`` as consumed by the
 reference (``/root/reference/src/workspace.jl:307,314``,
 ``src/optimize.jl:94``): the standard final-time functionals ``J_T_sm`` /
 ``J_T_re`` / ``J_T_ss`` with their analytic ``chi`` counterparts, the pulse

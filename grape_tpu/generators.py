@@ -1,6 +1,6 @@
 """Time-dependent generators (Hamiltonians / Liouvillians).
 
-TPU-native analog of ``QuantumPropagators.Generators`` as consumed by the
+JAX analog of ``QuantumPropagators.Generators`` as consumed by the
 reference (``hamiltonian(H0, (H1, ε), …)`` structure, ``README.md:36-42``).
 A :class:`Generator` is a drift operator plus a list of ``(operator,
 amplitude)`` terms.  For the jitted GRAPE program it compiles (per list of
@@ -12,7 +12,7 @@ matrices:
 
 where ``M (N_T, T, L)`` holds the (shape-weighted) linear coefficients.  This
 keeps the whole time scan free of Python dispatch and makes both ``H`` and
-``μ`` batched-matmul (MXU) workloads.
+``μ`` batched-matmul workloads.
 """
 
 import numpy as np

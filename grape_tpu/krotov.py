@@ -21,12 +21,12 @@ Algorithm (first-order Krotov, the Krotov.jl default): per iteration,
    pulse, then the state advances one step with the new value — the
    self-consistent update that makes Krotov monotonically convergent.
 
-TPU-native shape: steps 1–3 are ONE jitted program per iteration; the
+JAX shape: steps 1–3 are ONE jitted program per iteration; the
 sequential sweep is a ``lax.scan`` whose carry is the state block
 (the time axis is inherently sequential here, exactly like the GRAPE
-forward scan).  Complex outputs are packed as real/imag pairs
-(platform constraint).  Krotov is a parity/continuation feature, not
-the performance path — no Pallas kernels are engaged.
+forward scan).  Complex outputs are packed as real/imag pairs, like
+every program output.  Krotov is a parity/continuation feature, not
+the performance path.
 """
 
 import datetime
@@ -173,7 +173,6 @@ def optimize_krotov(
     """
     trajectories = list(trajectories)
     kwargs.pop("optimizer", None)
-    kwargs.pop("use_pallas", None)
     # Krotov's per-step update re-derives H_n from the freshly updated
     # pulse inside the sweep; the step propagator is always the exact
     # dense expm (prop-method kwargs are accepted for API compatibility
@@ -187,7 +186,7 @@ def optimize_krotov(
     compile_kwargs.pop("storage_mode", None)
     compile_kwargs.pop("storage_segments", None)
     cp = compile_problem(
-        trajectories, tlist, use_pallas=False, **compile_kwargs
+        trajectories, tlist, **compile_kwargs
     )
     if cp.g_b is not None or cp.xi is not None:
         raise NotImplementedError(

@@ -139,11 +139,8 @@ def two_transmon_subspace_gate_problem(
     reference's gate-functional pattern,
     ``/root/reference/docs/src/background.md:552-610``) in the
     **fat-batch regime**: with a shared generator the forward matvec is a
-    single ``(K, dim) @ (dim, dim)`` MXU matmul per propagator term
-    instead of K thin ones — measured on-chip at d²=1024, K=64 this runs
-    the Chebyshev term application at 15.4% MFU (highest precision)
-    where the K=4 logical-basis CZ is geometry-bound at ~1.3%
-    (``experiments/r3_dim1024_probe.py``)."""
+    single ``(K, dim) @ (dim, dim)`` matmul per propagator term
+    instead of K thin ones."""
     H0, drives = _two_transmon_hamiltonian(
         d, delta1, delta2, alpha1, alpha2, J
     )
@@ -186,8 +183,7 @@ def two_transmon_cz_ensemble_problem(
     from ``±delta_spread`` — each propagating the 4 logical basis states,
     so ``K = 4·n_samples`` trajectories with **K distinct generators**
     sharing one set of 4 drive controls.  This is the per-trajectory-
-    generator regime served by the fused ``frechet_trace_pallas_pertraj``
-    kernel (the reference handles it with per-trajectory propagators
+    generator regime (the reference handles it with per-trajectory propagators
     under its thread loop, ``/root/reference/src/workspace.jl:221-233``,
     ``src/optimize.jl:876-911``)."""
     rng = np.random.default_rng(seed)

@@ -1,6 +1,6 @@
 """Chebyshev-polynomial propagator.
 
-TPU-native analog of QuantumPropagators' ``Cheby`` method (used by the
+JAX analog of QuantumPropagators' ``Cheby`` method (used by the
 reference at ``test/test_lbfgsb_saddle_point.jl:10,109`` and
 ``docs/src/tutorial.md:308-311``): approximate ``exp(-i H dt) ψ`` by a
 Chebyshev series in the spectrally-normalized Hamiltonian,
@@ -11,7 +11,7 @@ Chebyshev series in the spectrally-normalized Hamiltonian,
 
 evaluated by the three-term recursion ``φ_{k+1} = 2 H_norm φ_k - φ_{k-1}``.
 This is matvec-only (no expm/solve), so it batches over the trajectory axis
-as pure MXU matmuls and scales to large dimensions.
+as pure batched matmuls and scales to large dimensions.
 
 The Bessel coefficients depend on the (static) spectral envelope; they are
 precomputed on host per time step and passed in as a static table, keeping

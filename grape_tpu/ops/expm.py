@@ -1,10 +1,10 @@
-"""Batched matrix exponential for TPU.
+"""Batched matrix exponential.
 
-TPU-native replacement for the reference's ``ExpProp`` propagator
+JAX replacement for the reference's ``ExpProp`` propagator
 (QuantumPropagators; used e.g. at ``/root/reference/README.md:38``).  The
 reference computes ``exp(-i H dt)`` per time step via a dense matrix
-exponential; here we provide a batched scaling-and-squaring Padé-13 expm that
-maps onto the MXU: all matmuls are batched over the leading (trajectory /
+exponential; here we provide a batched scaling-and-squaring Padé-13 expm in
+which all matmuls are batched over the leading (trajectory /
 control) axes, and the squaring loop uses a single *shared* scaling parameter
 ``s`` (max over the batch) so the loop count is one traced scalar rather than
 per-matrix dynamic control flow.
@@ -17,7 +17,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-__all__ = ["expm", "expm_pade13"]
+__all__ = ["expm", "expm_pade13", "taylor_order_for_bound"]
 
 # Padé-13 numerator coefficients (Higham 2005). float64 exact.
 _B = (
@@ -67,7 +67,7 @@ def expm_pade13(A):
 
 
 # Taylor scaling-and-squaring parameters: degree-16 Paterson-Stockmeyer for
-# single precision (matmul-only — no LU solve, which is slow on TPU).
+# single precision (matmul-only — no LU solve).
 _TAYLOR_DEGREE = 16
 _THETA_TAYLOR_F32 = 2.0  # conservative: ||A/2^s|| <= 2 with m=16 gives
                           # truncation error well below f32 roundoff
@@ -108,8 +108,8 @@ def expm(A, max_squarings=32):
     batch (max of the per-matrix 1-norms), so the squaring loop is a single
     ``fori_loop`` with a traced trip count.  The core approximant is
     Padé-13 in double precision (reference-accuracy parity) and a matmul-only
-    degree-16 Taylor (Paterson-Stockmeyer) in single precision — on TPU the
-    Padé LU solve would dominate the cost.
+    degree-16 Taylor (Paterson-Stockmeyer) in single precision, which needs
+    no LU solve.
     """
     A = jnp.asarray(A)
     use_taylor = A.dtype in (jnp.complex64, jnp.float32)
@@ -131,3 +131,23 @@ def expm(A, max_squarings=32):
         return M @ M
 
     return lax.fori_loop(0, s, square, E)
+
+
+def taylor_order_for_bound(bound, tolerance=1e-8, max_order=100,
+                           prefactor=1.0):
+    """Static Taylor order for the χ'-recursion: smallest ``m`` with
+    ``prefactor · m · bound^m / m! < tolerance`` (+2 safety).  ``bound`` is
+    the host-side envelope of ``|dt|·‖H‖`` (same bound that sizes the expm
+    squarings); ``prefactor`` is ``‖μ‖/‖H‖`` — the recursion iterates
+    ``Φ_m = μ H^{m-1} χ + H Φ_{m-1}`` so ``‖Φ_m‖ ≤ m·‖μ‖·‖H‖^{m-1}`` and the
+    m-th series term is bounded by ``(‖μ‖/‖H‖)·m·(dt‖H‖)^m/m!``.
+    Returns ``None`` if no order ≤ ``max_order`` satisfies the tolerance —
+    the caller then falls back to the dynamic ``lax.while_loop`` path,
+    mirroring the reference's non-convergence error
+    (``src/optimize.jl:640-646``)."""
+    term = max(float(prefactor), 1e-30)
+    for m in range(1, max_order + 1):
+        term *= max(float(bound), 1e-30) / m
+        if m * term < tolerance:
+            return min(m + 2, max_order)
+    return None

@@ -1,14 +1,14 @@
 """Exact per-time-step gradient kernels.
 
-TPU-native replacements for the reference's two gradient engines:
+JAX replacements for the reference's two gradient engines:
 
 - ``gradgen_step``: the augmented-matrix ("gradient generator" / Van Loan)
   scheme.  The reference backward-propagates an extended state of dimension
   ``N(L+1)`` under a block generator (QuantumGradientGenerators; structure at
-  ``/root/reference/docs/src/background.md:443-496``).  On TPU we instead
+  reference ``docs/src/background.md:443-496``).  Here we instead
   batch ``L`` independent ``2d x 2d`` augmented exponentials
   ``exp([[A, B_l], [0, A]])`` whose top-right block is the Fréchet derivative
-  ``L(A, B_l)`` — an MXU-friendly batched-matmul workload that yields
+  ``L(A, B_l)`` — a batched-matmul workload that yields
   ``U†χ`` and all ``(∂U†/∂ε_l)χ`` in one fused call.
 
 - ``taylor_grad_step``: the Taylor-recursion scheme of Kuprov & Rogers
@@ -229,7 +229,7 @@ def taylor_grad_step(H, mu, chi, dt, max_order=100, tolerance=1e-16,
     recursion to iterate with ``H/scale``: the iterates stay O(1) and the
     series weight ``(-i dt scale)^m/m!`` stays in f32 normal range.  The
     unscaled recursion drives ``Φ_m ~ ‖H‖^m`` toward overflow while the
-    coefficient underflows — on TPU (flush-to-zero, no denormals) that
+    coefficient underflows — where denormals flush to zero that
     silently truncates the series early.  Mathematically identical.
     """
     A = jnp.asarray(H)

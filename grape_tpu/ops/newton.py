@@ -1,6 +1,6 @@
 """Krylov (Arnoldi) propagator.
 
-TPU-native analog of the reference's Newton propagator capability
+JAX analog of the reference's Newton propagator capability
 (QuantumPropagators; ``/root/reference/docs/src/index.md:63`` lists Newton
 for non-Hermitian generators where the Chebyshev method does not apply):
 ``exp(A) ψ`` approximated in a fixed-dimension Krylov subspace,

@@ -1,6 +1,6 @@
 """Pulse shape functions.
 
-TPU-native analog of ``QuantumPropagators.Shapes`` (used by the reference at
+JAX analog of ``QuantumPropagators.Shapes`` (used by the reference at
 e.g. ``test/test_tls_optimization.jl:20`` and
 ``test/test_state_running_cost.jl:219-227``): ``flattop``, ``blackman``,
 ``box``.

@@ -2,9 +2,8 @@
 
 Chunks of optax-L-BFGS iterations run inside ONE jitted program per
 chunk; the host syncs once per chunk and replays the per-iteration
-protocol (result updates, callbacks, convergence checks).  On the TPU
-platform this amortizes the ~27-31 ms per-call host↔device latency that
-otherwise caps GRAPE iteration rate."""
+protocol (result updates, callbacks, convergence checks), amortizing
+the per-evaluation host↔device round trip."""
 
 import numpy as np
 
@@ -104,8 +103,7 @@ def test_device_loop_native_linesearch_efficiency():
     """The native traced L-BFGS + Moré-Thuente line search (the default
     device-loop optimizer since round 4) matches the host
     reverse-communication backend's fg-per-iteration economy — the optax
-    zoom default spent ~2.1 extra probes/iteration, which made the
-    device loop lose its own benchmark (BENCH.md round 3).  Anchor: the
+    zoom default spent ~2.1 extra probes/iteration.  Anchor: the
     host L-BFGS-B runs the same problem at ~1.6 fg/iter."""
     from grape_tpu.testing import cnot_problem
 
@@ -236,13 +234,10 @@ def test_device_loop_sharded_matches_single_device():
 
 
 def test_device_loop_auto_chunk_schedule():
-    """chunk_schedule="auto" (the optimizer="auto" default on TPU,
-    VERDICT round-4 item 3): one exact probe chunk, then — since the
-    measured duration projects safely under the platform's ~1-min
-    execution kill — a JUMP straight to the full chunk size (every
-    distinct chunk length is a separate compiled program whose first
-    execution pays the per-program queue; the old 1->2->4->... ladder
-    paid it at every rung).  The math matches the fixed-chunk run
+    """chunk_schedule="auto": one exact probe chunk, then — since the
+    measured duration projects under the 45 s duration guard — a JUMP
+    straight to the full chunk size (every distinct chunk length is a
+    separate compiled program).  The math matches the fixed-chunk run
     exactly."""
     from grape_tpu.optimizers.device_loop import DeviceLoopBackend
 
@@ -321,9 +316,9 @@ def test_device_loop_auto_schedule_resets_on_mutation():
 
 
 def test_optimizer_auto_selection():
-    """optimizer default ("auto"): device loop with the growing chunk
-    schedule on TPU, host C++ L-BFGS-B on CPU, host loop whenever
-    fw_prop_callback needs strict per-evaluation host control."""
+    """optimizer default ("auto"): the host C++ L-BFGS-B on every
+    platform — on the CPU (the test platform) and on a (fake) GPU —
+    and explicit backend selection is never overridden."""
     import jax
 
     from grape_tpu.optimize import _get_optimizer
@@ -343,21 +338,21 @@ def test_optimizer_auto_selection():
     assert isinstance(_get_optimizer(FakeWrk({})), LBFGSB)
     assert isinstance(_get_optimizer(FakeWrk({"optimizer": "auto"})), LBFGSB)
 
-    # fake TPU platform -> device loop with auto schedule
+    # fake GPU platform -> still the host L-BFGS-B
     class FakeDev:
-        platform = "tpu"
+        platform = "gpu"
+        device_kind = "NVIDIA H100 80GB HBM3"
 
     real_devices = jax.devices
     jax.devices = lambda *a, **k: [FakeDev()]
     try:
-        opt = _get_optimizer(FakeWrk({}))
-        assert isinstance(opt, DeviceLoopBackend)
-        assert opt.chunk_schedule == "auto"
-        assert opt.chunk_iters == 16
-        # fw_prop_callback forces the host loop even on TPU
-        opt2 = _get_optimizer(FakeWrk({}, fw_cb=lambda v, t: None))
-        assert isinstance(opt2, LBFGSB)
+        assert isinstance(_get_optimizer(FakeWrk({})), LBFGSB)
+        assert isinstance(
+            _get_optimizer(FakeWrk({}, fw_cb=lambda v, t: None)), LBFGSB
+        )
         # explicit backend selection is never overridden
+        opt = _get_optimizer(FakeWrk({"optimizer": "device-lbfgs"}))
+        assert isinstance(opt, DeviceLoopBackend)
         opt3 = _get_optimizer(FakeWrk({"optimizer": "lbfgsb"}))
         assert isinstance(opt3, LBFGSB)
     finally:

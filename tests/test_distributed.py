@@ -1,10 +1,9 @@
 """REAL multi-process distributed optimization (multi-host story).
 
 The reference is a single-process code (``@threadsif`` threads,
-SURVEY §2); the TPU-native multi-host counterpart is
+SURVEY §2); the JAX multi-host counterpart is
 ``optimize(..., mesh=...)`` over a global mesh built after
-``jax.distributed.initialize``.  Round-2 evidence for this path was a
-single-process virtual mesh; this test launches TWO separate processes
+``jax.distributed.initialize``.  This test launches TWO separate processes
 with Gloo CPU collectives — the cross-trajectory ``psum`` is genuine
 inter-process communication — and asserts:
 

@@ -5,6 +5,7 @@ import pytest
 import scipy.linalg
 
 from grape_tpu.ops import expm, expm_frechet, gradgen_step
+from grape_tpu.ops.expm import taylor_order_for_bound
 
 
 @pytest.mark.parametrize("dim", [2, 4, 10, 32])
@@ -86,3 +87,27 @@ def test_expm_single_precision_taylor():
         assert rel < 5e-5, (s, rel)
         # unitarity preserved
         assert np.linalg.norm(E @ E.conj().T - np.eye(8)) < 1e-4
+
+
+@pytest.mark.parametrize("bound,prefactor", [(0.05, 1.0), (0.5, 3.0),
+                                             (2.0, 0.2)])
+def test_taylor_order_for_bound(bound, prefactor):
+    """The static order is the first m whose term bound
+    prefactor·m·bound^m/m! falls below the tolerance, plus 2."""
+    from math import factorial
+
+    tol = 1e-9
+    m_star = next(
+        m for m in range(1, 100)
+        if prefactor * m * bound**m / factorial(m) < tol
+    )
+    assert taylor_order_for_bound(bound, tolerance=tol,
+                                  prefactor=prefactor) == m_star + 2
+
+
+def test_taylor_order_for_bound_unreachable():
+    """No order within max_order reaches the tolerance: None (the caller
+    falls back to the dynamic while_loop path); the +2 margin is capped
+    at max_order."""
+    assert taylor_order_for_bound(50.0, tolerance=1e-12, max_order=20) is None
+    assert taylor_order_for_bound(0.5, tolerance=1e-9, max_order=12) == 12

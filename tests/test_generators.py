@@ -1,7 +1,7 @@
 """Generator utilities: heterogeneous-ensemble alignment.
 
 The batched device program requires a shared term structure across all
-trajectories (the TPU-native counterpart of the reference looping
+trajectories (the batched counterpart of the reference looping
 per-trajectory propagator objects, ``/root/reference/src/optimize.jl:720``).
 ``align_generators`` pads heterogeneous ensembles onto the union structure.
 """

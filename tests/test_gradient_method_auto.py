@@ -2,12 +2,10 @@
 
 The reference exposes ``gradient_method`` as ``:gradgen``/``:taylor``
 (`/root/reference/src/docstring.jl:118-130`) and leaves the choice to
-the user; its docs note taylor is preferable at large dimension.  The
-TPU build adds ``"auto"``: gradgen wherever the time-vectorized rank-1
-Fréchet path (and its fused kernels) serves — ExpProp propagation, full
-storage, dim ≤ 128 — else taylor (BENCH.md: dim-1024 cheby gradgen runs
-at 0.5% device MFU vs taylor's 3.2%; at dim ≤ 128 the fused gradgen
-kernel is the fastest path at 18.4% MFU)."""
+the user; its docs note taylor is preferable at large dimension.  This
+build adds ``"auto"``: gradgen wherever the time-vectorized rank-1
+Fréchet path serves — ExpProp propagation, dim ≤ 128 — else taylor
+(the per-step extended-state gradgen costs d³ per direction)."""
 
 import numpy as np
 

@@ -2,8 +2,8 @@
 
 The reference accepts arbitrary per-trajectory generators (each trajectory
 owns its propagators, ``/root/reference/src/workspace.jl:221-233``).  The
-batched TPU design handles this two ways, both automatic in
-``compile_problem`` (VERDICT round-2 item 3):
+batched design handles this two ways, both automatic in
+``compile_problem``:
 
 - differing term STRUCTURES (e.g. a crosstalk drive on some members) are
   auto-aligned to the amplitude union with zero-operator padding;
@@ -267,7 +267,7 @@ def test_per_trajectory_prop_settings():
     `/root/reference/src/workspace.jl:216-233`, spec
     `src/docstring.jl:201-225`): a UNIFORM trajectory attribute is
     honored; heterogeneous (or partial) settings raise a clear
-    NotImplementedError — the TPU build batches all trajectories through
+    NotImplementedError — this build batches all trajectories through
     one program (documented deviation) — and a conflict with the global
     kwarg raises ValueError."""
     import pytest

@@ -78,8 +78,9 @@ def test_ensemble_trajectories_share_controls():
 
 
 def test_graft_entry():
+    import os
     import sys
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import __graft_entry__ as g
 
     fn, args = g.entry()
@@ -91,10 +92,8 @@ def test_graft_entry():
 
 def test_two_transmon_subspace_gate_problem():
     """Fat-batch gate synthesis: K = n_basis basis states under ONE
-    shared generator toward a seeded random subspace unitary — the
-    MXU-row-packing regime measured in experiments/r3_dim1024_probe.py
-    (K=64 runs the dim-1024 cheby term chain at 15.4% MFU where the
-    K=4 CZ is geometry-bound at ~1.3%), here at reduced size."""
+    shared generator toward a seeded random subspace unitary, here at
+    reduced size."""
     from grape_tpu.models import two_transmon_subspace_gate_problem
     from grape_tpu.fg import compile_problem
 

@@ -1,10 +1,9 @@
-"""Background pre-warm of the next amplitude-envelope bucket (VERDICT
-round-2 item 4: kill the mid-run re-jit stall).
+"""Background pre-warm of the next amplitude-envelope bucket (kills the
+mid-run re-jit stall).
 
 Static-envelope programs (Chebyshev tables, vectorized-Taylor orders,
-Pallas squarings) re-jit when the optimizer pushes pulses past the
-envelope; on the TPU platform that re-jit pays compile + a 100-530 s
-first-execution queue MID-RUN.  The workspace now builds AND executes the
+expm squarings) re-jit when the optimizer pushes pulses past the
+envelope, which would pay a compile MID-RUN.  The workspace builds AND executes the
 next bucket's programs on a daemon thread right after the first
 foreground evaluation, so the growth swaps to an already-warm program."""
 

@@ -1,7 +1,7 @@
 """Static-operator decomposition of the vectorized-taylor H†-apply.
 
 At dim ≥ 128 the backward recursion applies the T+1 STATIC term operators
-to the whole (N_T·K·(L+1), d) block (full MXU tiles, no (N_T, d, d) H_n
+to the whole (N_T·K·(L+1), d) block (large matmuls, no (N_T, d, d) H_n
 materialization) instead of N_T thin per-step matmuls.  Must be exactly
 the same math as the per-step scan path."""
 
